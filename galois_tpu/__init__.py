@@ -1,11 +1,11 @@
-"""galois_tpu: a TPU-native Galois-field computation framework.
+"""galois_tpu: Galois-field computation on accelerators, in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference `galois` library: finite-field arrays GF(p^m), polynomials,
-FEC codes (BCH/Reed-Solomon), LFSRs, the NTT, finite-field linear algebra,
-and a number-theory toolbox — designed TPU-first (jit/vmap/shard_map over
-device meshes; lookup tables in VMEM; multi-limb modular arithmetic in
-32-bit lanes; MXU-friendly matmuls).
+A from-scratch JAX/XLA framework with the capabilities of the reference
+`galois` library: finite-field arrays GF(p^m), polynomials, FEC codes
+(BCH/Reed-Solomon), LFSRs, the NTT, finite-field linear algebra, and a
+number-theory toolbox — built for devices (jit/vmap/shard_map over device
+meshes; multi-limb modular arithmetic in 32-bit lanes; exact int8-plane
+matmuls).
 """
 
 import jax as _jax

@@ -1,6 +1,6 @@
 """Lookup databases: Conway polynomials, minimal-term irreducible polynomials.
 
-TPU-native analogue of the reference's SQLite layer (reference:
+In-memory analogue of the reference's SQLite layer (reference:
 src/galois/_databases/_interface.py:31-158). Data is packed .npz (built by
 scripts/extract_reference_dbs.py from the public Luebeck/Wolfram tables) and
 loaded once into an in-memory dict — no connection/locking machinery needed.

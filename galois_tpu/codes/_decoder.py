@@ -1,6 +1,6 @@
 """Batched BCH / Reed-Solomon decoder.
 
-The TPU-native re-design of the reference's per-codeword JIT pipeline
+A batched re-design of the reference's per-codeword JIT pipeline
 (reference: src/galois/_codes/_bch.py:1336-1576): every stage — syndromes,
 erasure locator, Berlekamp-Massey, Chien search, Forney — is a fixed-shape,
 branch-free computation batched over codewords. The reference's early-`continue`
@@ -33,6 +33,7 @@ import numpy as np
 from ..fields._hostfield import get_host_field
 from ..fields._meta import FieldMeta
 from ..ops._kernels import get_ops
+from ..ops._linalg import int8_matmul
 
 
 # Bounded: each decoder holds compiled XLA executables, and every live
@@ -57,8 +58,8 @@ def make_decoder(
 
     ``with_erasures=False`` builds the erasure-free specialization: no
     erasure-locator scan, unmodified syndromes, and Berlekamp-Massey
-    windows as dynamic slices instead of per-row gathers (gathers lower
-    catastrophically on TPU) — the common decode path.
+    windows as dynamic slices instead of per-row gathers — the common
+    decode path.
     """
     assert ext_meta.storage == "int", "FEC syndrome fields use int storage"
     ops = get_ops(ext_meta, mode)
@@ -110,7 +111,7 @@ def make_decoder(
         # Gamma(x) = prod_{erased j} (1 - Y_j x) has degree <= d-1, so it is
         # determined by its values at d fixed points z_k. Each value is a
         # product over erased factors, i.e. a SUM of discrete logs linear in
-        # the erasure mask: one (B, n) @ (n, d) integer matmul on the MXU
+        # the erasure mask: one (B, n) @ (n, d) integer matmul
         # replaces the former top_k + locator gather + d-step scan. The
         # coefficients come back via one exact field matmul with the
         # host-inverted Vandermonde of the z_k. Bit-exact with reference
@@ -146,13 +147,13 @@ def make_decoder(
         Vinv_T = np.array(
             [[M_[r][d + c] for c in range(d)] for r in range(d)], dtype=np.int64
         ).T
-        # 7-bit planes of LT for exact int8 MXU matmuls (log values < q-1)
+        # 7-bit planes of LT for exact int8 matmuls (log values < q-1)
         n_log_planes = max(1, -(-(q - 1).bit_length() // 7))
         LT_planes = [((LT >> (7 * i)) & 127).astype(np.int8) for i in range(n_log_planes)]
         g_nbits = (q - 1).bit_length()
 
     def fmatmul(X, Mconst_np):
-        """(B, K) @ (K, N) with a host-constant matrix — MXU bit-planes for
+        """(B, K) @ (K, N) with a host-constant matrix — int8 bit planes for
         binary extension fields, masked field-dot otherwise."""
         from ..ops._binary_matmul import binary_matmul
         from ..ops._binary_matmul import supports as bin_supports
@@ -231,9 +232,8 @@ def make_decoder(
         per-row offset u (the erasure count) — step t is a no-op while
         t < u_b, and relative step indices are t - u_b, so NO per-row
         shift/gather of the syndrome rows is needed (take_along_axis was
-        the erasure path's one real gather; gathers lower catastrophically
-        on TPU). The per-step window is ONE dynamic slice of a zero-padded
-        buffer; delta = dot(rev(C), ascending window)."""
+        the erasure path's one real gather). The per-step window is ONE
+        dynamic slice of a zero-padded buffer; delta = dot(rev(C), ascending window)."""
         C0 = jnp.zeros((B, d), dtype=dt).at[:, 0].set(1)
         Bp0 = jnp.zeros((B, d), dtype=dt).at[:, 0].set(1)
         L0 = jnp.zeros((B,), dtype=jnp.int32)
@@ -284,18 +284,18 @@ def make_decoder(
 
         # 2. erasure locator Gamma (ascending, d coeffs) by evaluation-
         # interpolation: log Gamma(z_k) is LINEAR in the erasure mask, so
-        # one (B, n) @ (n, d) int8 MXU matmul of the mask against the
+        # one (B, n) @ (n, d) int8 matmul of the mask against the
         # host log table gives every evaluation; vanishing factors (z_k an
         # inverse locator of an erased position) are patched to exact 0;
         # one field matmul with the inverted Vandermonde recovers the
         # coefficients. Replaces the former top_k + gather + d-step scan.
         era_i8 = era.astype(jnp.int8)
         # the log sum is < n*(q-1); stay in native int32 lanes when that
-        # fits (every FEC symbol field) — int64 %/<<+ are emulated on TPU
+        # fits (every FEC symbol field)
         sum_dt = jnp.int32 if n * (q - 1) < 2**31 else jnp.int64
         logsum = None
         for i, plane in enumerate(LT_planes):
-            s = jnp.matmul(era_i8, jnp.asarray(plane), preferred_element_type=jnp.int32)
+            s = int8_matmul(era_i8, jnp.asarray(plane))
             term = s.astype(sum_dt) << (7 * i)
             logsum = term if logsum is None else logsum + term
         e_red = logsum % (q - 1)  # (B, d)

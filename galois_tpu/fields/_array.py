@@ -2,7 +2,7 @@
 
 The reference subclasses np.ndarray and intercepts ufuncs
 (reference: src/galois/_fields/_array.py:28, src/galois/_domains/_ufunc.py:660).
-TPU-first, FieldArray is instead an immutable *pytree wrapper* around a
+Here FieldArray is instead an immutable *pytree wrapper* around a
 `jax.Array` in the field's internal storage format (ints / digit vectors /
 limb vectors — see FieldMeta.storage). All arithmetic routes through jitted
 whole-array kernels in ops/_kernels.py, so FieldArrays compose transparently
@@ -625,7 +625,7 @@ class FieldArray(Array):
 
     @property
     def jax(self) -> jnp.ndarray:
-        """The underlying jax.Array in internal storage layout (TPU-native
+        """The underlying jax.Array in internal storage layout (device
         escape hatch; zero-copy)."""
         return self._data
 
@@ -638,10 +638,6 @@ class FieldArray(Array):
         mode = cls._mode
         if mode == "python-calculate":
             return _python_op(cls._meta, opname)
-        if opname == "multiply":
-            # public elementwise multiplies may ride a Pallas kernel;
-            # composite device kernels keep the fusable ops.multiply
-            opname = "multiply_bulk"
         return _kernel(cls._meta, mode, opname)
 
     def _coerce(self, other, for_multiply=False):

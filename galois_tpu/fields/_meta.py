@@ -1,7 +1,7 @@
 """FieldMeta: the static field descriptor.
 
 The reference implements per-field state as a metaclass (`ArrayMeta`,
-reference: src/galois/_domains/_meta.py:22-203). TPU-first, that state becomes
+reference: src/galois/_domains/_meta.py:22-203). Here that state becomes
 a hashable *descriptor* object carried as a static closure into jitted
 kernels. The descriptor owns:
 
@@ -34,13 +34,11 @@ LOOKUP_TABLE_MAX_ORDER = 2**20
 STORAGE_INT = "int"        # one unsigned integer per element
 STORAGE_DIGITS = "digits"  # (..., m) base-p digit vectors (odd p^m, order > 2^31)
 STORAGE_LIMBS = "limbs"    # (L, ...) PLANAR base-2^16 limb vectors (huge primes / GF(2^m), m > 32)
-# Limb storage is planar (limb axis LEADING, little-endian): XLA maps the
-# trailing axis of an array onto the TPU's 128 vector lanes, so a trailing
-# limb axis of 4 runs every elementwise kernel at ~3% lane utilization.
-# With the limb axis leading, each limb plane is a full contiguous
-# (elem_shape) array and slicing a limb is free (measured ~15x on the
-# Goldilocks multiply). Digit storage keeps the trailing axis: digit fields
-# interact with MXU contractions that want the digit axis minor.
+# Limb storage is planar (limb axis LEADING, little-endian): each limb
+# plane is a full contiguous (elem_shape) array and slicing a limb is free,
+# where a trailing limb axis of 4 would interleave the limbs of every
+# element. Digit storage keeps the trailing axis: digit fields interact
+# with contractions that want the digit axis minor.
 
 LIMB_BITS = 16
 LIMB_BASE = 1 << LIMB_BITS
@@ -113,14 +111,9 @@ class FieldMeta:
         # --- compile-mode default -------------------------------------
         # The reference defaults to lookup tables for order <= 2^20
         # (reference: src/galois/_domains/_meta.py:39-48) because Numba CPU
-        # table reads beat its scalar arithmetic. On TPU the economics
-        # invert: XLA table gathers run ~1000x slower than the vectorized
-        # calculate kernels, and even on CPU the XLA calculate kernels win.
-        # Default to jit-calculate everywhere; lookup stays available via
-        # compile(), and on TPU small odd extension fields route their
-        # standalone elementwise multiplies through the Pallas VMEM-gather
-        # lookup kernels via multiply_bulk (the digit-convolution kernels
-        # lose ~6x there) while composites keep the fusable calculate path.
+        # table reads beat its scalar arithmetic. Here the vectorized
+        # calculate kernels are the default everywhere; lookup (XLA table
+        # gathers) stays available via compile().
         self.default_ufunc_mode = "jit-calculate"
         # GF(2) has no lookup mode (bitwise ops are already optimal —
         # reference: src/galois/_fields/_gf2.py:155-157).
@@ -171,7 +164,7 @@ class FieldMeta:
 
         Reduces a 2m-1 coefficient product: out = low + high @ R (mod p),
         where high[i] is the coefficient of x^(m+i). Lets extension-field
-        multiply be (conv, then one small matmul) — MXU/VPU friendly, unlike
+        multiply be (conv, then one small matmul) — vectorizable, unlike
         the reference's per-element division loops
         (reference: src/galois/_domains/_calculate.py:288-324).
         """

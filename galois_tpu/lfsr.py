@@ -1,7 +1,7 @@
 """Linear-feedback shift registers and Berlekamp-Massey.
 
 API parity with the reference (reference: src/galois/_lfsr.py:27-1702).
-TPU-first: `step(n)` runs one `lax.scan` of n clock ticks with the state as
+On device: `step(n)` runs one `lax.scan` of n clock ticks with the state as
 the carry — replacing the reference's sequential Numba loops — so stepping is
 a single device computation regardless of n, and batches/vmaps cleanly.
 """

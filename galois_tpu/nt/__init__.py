@@ -1,7 +1,7 @@
 """Host-side number theory for galois_tpu.
 
 Everything here is arbitrary-precision Python that runs at field-construction
-or trace time — none of it executes on the TPU.  The device-side equivalents
+or trace time — none of it executes on the device.  The device-side equivalents
 live in `galois_tpu.ops`.
 """
 

@@ -1,7 +1,7 @@
 """Host-side integer math primitives (arbitrary precision).
 
 These run on the host at field-construction / trace time only; they never
-execute on the TPU.  API parity with the reference library's `_math.py`
+execute on the device.  API parity with the reference library's `_math.py`
 (reference: src/galois/_math.py:18-225).
 """
 

@@ -1,4 +1,4 @@
-"""GF(2^m) matrix multiply on the MXU via bit-plane decomposition.
+"""GF(2^m) matrix multiply via bit-plane decomposition.
 
 A GF(2^m) matmul C = A @ B decomposes into m^2 boolean matmuls: writing
 elements as bit vectors, product-polynomial coefficient k is
@@ -6,11 +6,11 @@ elements as bit vectors, product-polynomial coefficient k is
     P_k = XOR-sum over n of AND(A_i, B_j) for i + j = k
         = parity( sum_n A_i[., n] * B_j[n, .] )
 
-so each (i, j) pair is one f32 MXU matmul of 0/1 matrices (exact while the
-contraction sum stays below 2^24), and the 2m-1 product bits fold back to m
+so each (i, j) pair is one int8 matmul of 0/1 matrices with int32 sums
+(exact while the contraction sum stays below 2^31), and the 2m-1 product bits fold back to m
 bits through the irreducible polynomial's reduction matrix mod 2.
 
-This is the TPU-native answer to the reference's prange triple-loop extension
+This is the dense-matmul answer to the reference's prange triple-loop extension
 field matmul (reference: src/galois/_domains/_linalg.py:280-308, 5.5x slower
 than BLAS) — here the work IS BLAS-shaped.
 """
@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..fields._meta import FieldMeta
+from ._linalg import int8_matmul
 
 __all__ = ["binary_matmul", "supports"]
 
@@ -33,7 +34,7 @@ def supports(meta: FieldMeta, K: int) -> bool:
         meta.characteristic == 2
         and 1 < meta.degree <= 32
         and meta.storage == "int"
-        and K < 2**24  # per-block parity sums exact in f32
+        and K < 2**24  # block sums far inside int32
     )
 
 
@@ -56,23 +57,21 @@ def _reduction_rows(meta: FieldMeta):
 def binary_matmul(meta: FieldMeta, a, b):
     """a: (..., M, K), b: (..., K, N) uint arrays of GF(2^m) int reprs.
 
-    All m^2 plane products come from ONE stacked MXU matmul:
+    All m^2 plane products come from ONE stacked int8 matmul:
     (m*M, K) @ (K, m*N) — block (i, j) is A_i @ B_j."""
     m = meta.degree
     M, K = a.shape[-2], a.shape[-1]
     N = b.shape[-1]
     a32 = a.astype(jnp.int32)
     b32 = b.astype(jnp.int32)
-    # int8 0/1 planes with int32 accumulation: exact for K < 2^24 like the
-    # f32 formulation, but the int8 MXU path runs ~2x the bf16-pass rate
-    # the f32 planes rode (r5: gf256 256^2 matmul 66 us at 16% MFU on f32).
+    # int8 0/1 planes with int32 accumulation: exact for K < 2^31.
     astack = jnp.concatenate(
         [((a32 >> i) & 1).astype(jnp.int8) for i in range(m)], axis=-2
     )  # (..., m*M, K)
     bstack = jnp.concatenate(
         [((b32 >> j) & 1).astype(jnp.int8) for j in range(m)], axis=-1
     )  # (..., K, m*N)
-    big = jnp.matmul(astack, bstack, preferred_element_type=jnp.int32)
+    big = int8_matmul(astack, bstack)
     big = big & 1  # parity of each A_i @ B_j block
 
     def block(i, j):

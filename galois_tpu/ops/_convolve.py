@@ -1,9 +1,8 @@
 """Finite-field convolution (np.convolve replacement).
 
 Strategies (reference counterpart: src/galois/_domains/_function.py:111-167):
-- prime fields: int64 shift-multiply-accumulate on CPU; on TPU an exact
-  elementwise shift-accumulate (64-bit lanes) since 64-bit contractions
-  don't lower;
+- prime fields: an exact elementwise shift-multiply-accumulate in 64-bit
+  lanes;
 - any field: scan of shifted field multiply-adds;
 - large same-length inputs over NTT-friendly fields: via the field FFT
   (poly mul via NTT — SURVEY §7 M3).

@@ -1,4 +1,4 @@
-"""GF(p^m) (p odd) matrix multiply on the MXU via digit-plane decomposition.
+"""GF(p^m) (p odd) matrix multiply via digit-plane decomposition.
 
 Elements are base-p digit vectors; the product's digit-convolution
 coefficient k is sum over n of A_i[., n] * B_j[n, .] for i + j = k — so one
@@ -8,6 +8,7 @@ matrix. The odd-extension sibling of ops/_binary_matmul.py."""
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -41,7 +42,11 @@ def digit_matmul(meta: FieldMeta, a, b):
 
     astack = jnp.concatenate([digit(a32, i) for i in range(m)], axis=-2)
     bstack = jnp.concatenate([digit(b32, j) for j in range(m)], axis=-1)
-    big = jnp.matmul(astack, bstack, preferred_element_type=jnp.float32)
+    # HIGHEST: TF32 holds integers exactly only below 2^11, digits reach 4095
+    big = jnp.matmul(
+        astack, bstack, preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.HIGHEST,
+    )
     big = big.astype(jnp.int32) % p
 
     def block(i, j):

@@ -1,6 +1,6 @@
 """Device (JAX) arithmetic kernels for finite fields.
 
-This is the TPU-native replacement for the reference's Numba ufunc layer
+This is the XLA replacement for the reference's Numba ufunc layer
 (reference: src/galois/_domains/{_ufunc,_lookup,_calculate}.py). Instead of
 per-element JIT scalar kernels, every op is a whole-array jnp computation that
 XLA fuses; static field parameters (p, m, irreducible poly, tables, Barrett
@@ -19,7 +19,7 @@ Kernel families by storage kind:
 
 `LookupOps` overlays EXP/LOG-table gathers for mul/div/pow/log on small
 fields (order <= 2^20), mirroring the reference's jit-lookup mode — but add
-always uses direct arithmetic (cheaper than Zech gathers on TPU).
+always uses direct arithmetic (no Zech gathers).
 
 All functions take and return arrays in the field's *internal storage*
 (see FieldMeta.storage) and are pure/traceable: no data-dependent Python
@@ -90,11 +90,8 @@ def _mulmod_u32(av, bv, p: int):
 
     Reference semantics: src/galois/_domains/_calculate.py:308-340
     (multiply_modular); the reference relies on int64 scalar arithmetic,
-    which the TPU VPU emulates — this is the u32-native redesign.
-
-    64-bit multiply and constant-modulus division are emulated on the
-    TPU VPU (the generic u64 path measured ~15x slower than the all-u32
-    Mersenne kernel). Pipeline:
+    this is an all-u32 redesign with no 64-bit multiply or division.
+    Pipeline:
       1. 62..64-bit product from 16x16->32 halves (4 mults);
       2. fold the two high 16-bit digits with static c48 = 2^48 mod p and
          c32 = 2^32 mod p: v = d3*c48 + d2*c32 + plo < 2^17 * p + 2^32;
@@ -139,7 +136,9 @@ def _mulmod_u32(av, bv, p: int):
     vh, vl = add2w(h_a, l_a, h_b, l_b)
     vh, vl = add2w(vh, vl, jnp.zeros_like(vh), plo2)
     # v = vh*2^32 + vl; f32 quotient estimate (round-to-nearest, then
-    # clamp the remainder with conditional +-p)
+    # clamp the remainder with conditional +-p). vh * 2^32 is exact, so a
+    # compiler that fuses the add into an FMA rounds exactly as the
+    # separate add does: the +-2 slack holds either way.
     fv = vh.astype(jnp.float32) * jnp.float32(4294967296.0) + vl.astype(jnp.float32)
     q = (fv * jnp.float32(1.0 / p)).astype(jnp.uint32)  # < 2^18
     qh, ql = mul2w_const(q, p)
@@ -191,25 +190,13 @@ class FieldOps:
     def divide(self, a, b):
         return self.multiply(a, self.reciprocal(b))
 
-    def multiply_bulk(self, a, b):
-        """Elementwise multiply as dispatched by the public ufunc path.
-
-        Same semantics as `multiply`. This seam exists so a subclass could
-        route large standalone arrays to a Pallas kernel while composite
-        kernels (decoder, NTT, scans) keep the fusable `multiply`; measured
-        on v5e hardware, the Pallas SWAR and lane-roll kernels do NOT beat
-        XLA's fused ladders (docs/PERFORMANCE.md round-2 notes), so every
-        field currently keeps the XLA path here."""
-        return self.multiply(a, b)
-
     # -- limb-tuple protocol ------------------------------------------------
     # Composite kernels whose lax.scan/fori_loop carries are field elements
     # (pow ladders, Horner, butterfly stages) use split_limbs/join_limbs at
     # the loop boundary and the *_t methods inside. For int storage these
     # are identity passthroughs; limb fields override them so the loop
-    # carry is a tuple of full-lane arrays — the (..., w) minor-axis layout
-    # maps limbs onto TPU lanes at 4/128 utilization and forces a relayout
-    # at every loop iteration otherwise (measured 3.5x on Goldilocks).
+    # carry is a tuple of full arrays, one per limb — a (..., w) minor axis
+    # of 4 would force a relayout at every loop iteration.
 
     def split_limbs(self, a):
         return a
@@ -492,10 +479,9 @@ class PrimeOps(FieldOps):
         p = meta.characteristic
         self.p = p
         self.dt = jnp.dtype(meta.internal_dtype)
-        # Mersenne primes get an all-u32 multiply (2^e === 1 folds): 64-bit
-        # integer ops are emulated on TPU, so avoiding the u64 product is
-        # ~10x on the hot path. e == 31 splits the product into 16-bit
-        # halves; e <= 16 fits the whole u32 product directly.
+        # Mersenne primes get an all-u32 multiply (2^e === 1 folds) with no
+        # u64 product. e == 31 splits the product into 16-bit halves;
+        # e <= 16 fits the whole u32 product directly.
         e = p.bit_length()
         self._mersenne_e = e if (p == (1 << e) - 1 and (e == 31 or p <= 2**16)) else None
 
@@ -633,7 +619,7 @@ class BinaryExtOps(FieldOps):
         # Reduction constant R = f - x^m: x^m ≡ R (mod f). Folding the
         # overflow bits down is a constant carry-less multiply by R —
         # popcount(R) shift-xors per round instead of a per-bit select
-        # ladder, and never an integer multiply (emulated and slow on TPU).
+        # ladder, and never an integer multiply.
         R = self.f ^ (1 << self.m)
         self._r_bits = [k for k in range(R.bit_length()) if (R >> k) & 1]
         self._deg_r = max(self._r_bits) if self._r_bits else 0
@@ -676,8 +662,7 @@ class BinaryExtOps(FieldOps):
     def _clmul2(self, a, b):
         """Carry-less product for m in 17..32 as a (lo, hi) u32 pair
         (reference scalar form: src/galois/_domains/_calculate.py:288-324) —
-        replaces the former u64 formulation, which TPU emulates in 32-bit
-        halves with 3 integer multiplies per masked term."""
+        all in u32 words, with no 64-bit integer ops."""
         a32 = a.astype(jnp.uint32)
         b32 = b.astype(jnp.uint32)
         lo = jnp.zeros_like(a32)
@@ -714,33 +699,11 @@ class BinaryExtOps(FieldOps):
             width = max(m, width - m + self._deg_r)
         return lo.astype(self.dt)
 
-    # -- SWAR multiply: 4 elements per 32-bit VPU lane (m <= 8) ----------
-    #
-    # TPU has no carry-less multiply and no vector gather, so GF(2^m)
-    # multiply is a shift/mask ladder on the VPU. The baseline ladder
-    # wastes 24 of every 32 lane bits on a u8 element (~68 VPU ops/elem).
-    # Here 4 u8 elements ride one u32 lane: carry-less products are formed
-    # in 8-bit sub-slots (nibble-Karatsuba for m>4 keeps every partial
-    # product under 8 bits), and reduction mod f is two constant folds
-    # instead of a 7-step select ladder. ~3x fewer VPU ops per element.
     # Reference semantics: src/galois/_domains/_calculate.py:288-324.
-
     def multiply(self, a, b):
         if self.two_words:
             return self._reduce2(*self._clmul2(a, b))
         return self._reduce(self._clmul(a, b))
-
-    # NOTE: multiply_bulk deliberately stays on the mask ladder. The SWAR
-    # core (4 u8 elements per u32 lane, ~3x fewer VPU ops in the HLO) was
-    # made the default here in round 3 and MEASURED ON HARDWARE at
-    # 0.96 Gops/s chained vs the ladder's 88.5 (BENCH r3, v5e): the
-    # (N, 4)-u8 <-> u32 bitcast pair forces a minor-axis-4 physical
-    # relayout on both sides of the kernel — the same ~3%-lane-utilization
-    # trap that motivated planar limb storage — and it dwarfs the VPU-op
-    # saving. The Pallas SWAR variant (no relayout, explicit VMEM blocks)
-    # chains at 58 Gops/s — real, but still behind the plain ladder, so
-    # the ladder stays the default for every size. The SWAR core remains
-    # in ops/_pallas/_elementwise.py for the bench's comparison record.
 
     def square(self, a):
         # Squaring is bit-spreading (a_i -> bit 2i) then reduction — linear in m.
@@ -866,8 +829,7 @@ class OddExtOps(FieldOps):
 
     def _mul_digits(self, A, B):
         # Elementwise shift-accumulate convolution + reduction-matrix fold.
-        # Deliberately avoids dot_general: TPU's x64 rewriter cannot lower
-        # 64-bit contractions. All-u32 in all regimes:
+        # Elementwise (no dot_general), all-u32 in all regimes:
         #  - m*(p-1)^2 < 2^32: plain u32 accumulation, one % p at the end;
         #  - p <= 2^16: per-partial u32 % p, digit sums stay < m * 2^16;
         #  - p > 2^16: per-partial u32 Barrett mulmod (no u64 emulation),
@@ -908,35 +870,6 @@ class OddExtOps(FieldOps):
 
     def multiply(self, a, b):
         return self._undigits(self._mul_digits(self._digits(a), self._digits(b)))
-
-    def _lookup_tables(self):
-        if not hasattr(self, "_exp_log_padded"):
-            from ..fields._tables import build_exp_log
-            from ._pallas._elementwise import _pad128
-
-            exp, log = build_exp_log(self.meta)
-            # NumPy: this ops object is cached across traces
-            self._exp_log_padded = (_pad128(exp), _pad128(log))
-        return self._exp_log_padded
-
-    def multiply_bulk(self, a, b):
-        # Standalone elementwise multiplies of small odd extension fields
-        # ride the Pallas VMEM-gather lookup kernels on TPU — the digit
-        # convolution pays repeated integer div/mod per element and loses
-        # ~6x (measured GF(3^5): 0.28 vs 1.7 Gops/s on v5e). Composites
-        # keep the fusable digit kernels via `multiply`.
-        if self.int_storage and self.meta.order <= 4096 and max(a.size, b.size) >= (1 << 13):
-            from ._pallas._elementwise import _HAVE_PALLAS, lookup_multiply_pallas
-
-            if _HAVE_PALLAS and jax.default_backend() == "tpu":
-                exp_np, log_np = self._lookup_tables()
-                shape = jnp.broadcast_shapes(a.shape, b.shape)
-                A = jnp.broadcast_to(a, shape)
-                B = jnp.broadcast_to(b, shape)
-                return lookup_multiply_pallas(
-                    A, B, jnp.asarray(exp_np), jnp.asarray(log_np), self.meta.order
-                ).astype(self.dt)
-        return self.multiply(a, b)
 
     def power_static(self, a, e: int):
         # Large static exponents use the compact ladder (small XLA graph);
@@ -982,8 +915,8 @@ class OddExtOps(FieldOps):
 class _PlanarTupleMixin:
     """Shared limb-tuple protocol for PLANAR (L, *elem_shape) limb storage.
 
-    Every limb plane is a full contiguous array riding the TPU's 128-lane
-    axis; all arithmetic runs on tuples of u32 planes, with split/join at
+    Every limb plane is a full contiguous array; all arithmetic runs on
+    tuples of u32 planes, with split/join at
     the storage boundary reduced to free major-axis slices / one stack.
     Subclasses must set `self.L` (storage limb count) and `self.dt`
     (storage dtype)."""
@@ -1025,6 +958,25 @@ class _PlanarTupleMixin:
         return d, e, shape
 
 
+def unroll_one_shot(L: int, n_elems: int) -> bool:
+    """Form of a one-shot L-limb multiply (outside any scan body: a
+    storage-level multiply, the NTT twiddle, the limb-matmul combine) over
+    ``n_elems`` elements per limb plane.
+
+    The fold form (LimbPrimeOps._fold_diagonals) writes (L, L, n) and
+    (2L^2, n) u32 intermediates to device memory; the unrolled form is one
+    fused pass, but a ~4L^2-op graph that compiles slower (minutes of LLVM
+    on the CPU). Measured on an H100 80GB HBM3 at 700 W, BLS12-381 (L = 16):
+    an elementwise multiply of 2^22 elements takes 3.7 ms unrolled against
+    40.2 ms folded (compile 10.6 s against 6.8 s), one 2048^3 limb-matmul
+    side 37.2 ms against 66.1 ms, and 2^16 elements 0.18 ms against
+    0.92 ms (compile 12.4 s against 6.4 s). So the unrolled form is taken
+    once the fold's outer product would reach 1 GiB (2^20 elements at
+    L = 16), where it also keeps a 2^24-element multiply in memory; small
+    arrays keep the fold, whose compile time dominates there."""
+    return L > 4 and L * L * n_elems >= 2**28
+
+
 class LimbPrimeOps(_PlanarTupleMixin, FieldOps):
     """GF(p) for p >= 2^32: little-endian base-2^16 limb vectors, Barrett
     reduction with host-precomputed mu. All intermediates in u32 lanes —
@@ -1060,16 +1012,15 @@ class LimbPrimeOps(_PlanarTupleMixin, FieldOps):
 
         Small L keeps the fused elementwise double loop (O(L^2) tiny ops,
         XLA fuses them). Large L folds the anti-diagonals with one exact
-        int8 MXU matmul instead: the unrolled loop is ~4 L^2 HLO ops PER
+        int8 matmul instead: the unrolled loop is ~4 L^2 HLO ops PER
         MULTIPLY, and a 16-limb Fermat pow ladder (reciprocal of a 255-bit
         prime) made LLVM spin for tens of minutes compiling the scan body.
 
         ``unroll=True`` opts BACK into the fused elementwise loop for
         one-shot call sites outside any scan (NTT twiddle, matmul combine):
-        the MXU fold materializes (2L^2, N) u32 intermediates in HBM —
-        measured 301 ms for the BLS 2^22 twiddle multiply (probe_r5b) vs
-        single-digit ms unrolled — while a straight-line 4L^2-op graph
-        compiles fine when it is not inside a loop body. Column sums stay
+        the fold writes (2L^2, N) u32 intermediates to device memory, while
+        a straight-line 4L^2-op graph compiles fine when it is not inside a
+        loop body (see `unroll_one_shot`). Column sums stay
         < 2^22 for L <= 32, so the unrolled path is exact for every
         supported width."""
         L = self.L
@@ -1106,19 +1057,18 @@ class LimbPrimeOps(_PlanarTupleMixin, FieldOps):
 
     def _fold_diagonals(self, P, shape, M: np.ndarray):
         """Sum u32 products (< 2^32) over anti-diagonals with exact 7-bit
-        int8 -> int32 MXU matmuls (same plane trick as ops/_limb_matmul.py).
-        u8 planes would halve the plane count but a large u8-matmul graph
-        put the remote Mosaic compile into a >20-min spin (round-4 probe) —
-        int8 stays.
+        int8 -> int32 matmuls (same plane trick as ops/_limb_matmul.py).
         P: (T, *shape) after splitting lo/hi; M: (ncols, 2T) host 0/1."""
         T = P.shape[0] * P.shape[1] if P.ndim - len(shape) == 2 else P.shape[0]
         flat = P.reshape(T, -1)
         G = jnp.concatenate([flat & self.MASK, flat >> LIMB_BITS], axis=0)  # (2T, N) < 2^16
+        from ._linalg import int8_matmul
+
         Mj = jnp.asarray(M)
         acc = None
         for pl in range(3):  # 16 bits -> three 7-bit planes
             g = ((G >> (7 * pl)) & 127).astype(jnp.int8)
-            c = jnp.matmul(Mj, g, preferred_element_type=jnp.int32).astype(jnp.uint32)
+            c = int8_matmul(Mj, g).astype(jnp.uint32)
             acc = c << (7 * pl) if acc is None else acc + (c << (7 * pl))
         # row sums <= 2L * (2^16 - 1) < 2^22: carry_norm's invariant holds
         return [acc[k].reshape(shape) for k in range(M.shape[0])]
@@ -1202,14 +1152,6 @@ class LimbPrimeOps(_PlanarTupleMixin, FieldOps):
     def multiply_t(self, a, b, unroll: bool = False):
         return self._barrett_t(self._mul_full_t(a, b, unroll=unroll), unroll=unroll)
 
-    def multiply_unrolled(self, a, b):
-        """Planar-storage elementwise multiply via the fused unrolled loop —
-        for one-shot call sites outside any scan (NTT twiddle). See
-        _mul_full_t's unroll note."""
-        return self.join_limbs(
-            self.multiply_t(self.split_limbs(a), self.split_limbs(b), unroll=True)
-        )
-
     def square_t(self, a):
         return self.multiply_t(a, a)
 
@@ -1243,7 +1185,13 @@ class LimbPrimeOps(_PlanarTupleMixin, FieldOps):
     # adjacent join/split pairs between chained ops.
 
     def multiply(self, a, b):
-        return self.join_limbs(self.multiply_t(self.split_limbs(a), self.split_limbs(b)))
+        # A storage-level multiply is a one-shot site (scan bodies carry
+        # limb tuples through multiply_t), so its form follows the policy.
+        n = int(np.prod(jnp.broadcast_shapes(a.shape[1:], b.shape[1:]), dtype=np.int64))
+        unroll = unroll_one_shot(self.L, n)
+        return self.join_limbs(
+            self.multiply_t(self.split_limbs(a), self.split_limbs(b), unroll=unroll)
+        )
 
     def add(self, a, b):
         return self.join_limbs(self.add_t(self.split_limbs(a), self.split_limbs(b)))
@@ -1462,9 +1410,8 @@ class LimbBinaryOps(_PlanarTupleMixin, FieldOps):
 class GoldilocksOps(LimbPrimeOps):
     """Specialized kernels for p = 2^64 - 2^32 + 1 ("Goldilocks").
 
-    Pure 32-bit-lane arithmetic on the 4 x uint16 limb storage. The TPU VPU
-    is 32-bit, so uint64 ops are emulated in 32-bit pairs and 64-bit
-    multiplies are especially expensive; here the 128-bit product is built
+    Pure 32-bit-lane arithmetic on the 4 x uint16 limb storage, with no
+    64-bit integer op: the 128-bit product is built
     from sixteen native 16x16->32 multiplies (column sums stay < 2^19) and
     reduced with 2^64 = 2^32 - 1, 2^96 = -1 (mod p) as signed 16-bit-digit
     column folds. No uint64 appears anywhere on the hot path.
@@ -1531,12 +1478,8 @@ class GoldilocksOps(LimbPrimeOps):
         return (jnp.ones_like(t[0]), z, z, z)
 
     def multiply_t(self, a, b, unroll: bool = False):
-        # All-u32 16x16->32 products. An f32-pair variant (8-bit halves,
-        # exact in f32) was probed in rounds 2-3 and lost to this path on
-        # both CPU and TPU (bench.py keeps the experiment as
-        # goldilocks_mul_f32_chain_gops); the former env knob is gone.
-        # (unroll accepted for LimbPrimeOps API parity — this path is
-        # already the fully fused elementwise loop.)
+        # All-u32 16x16->32 products. (unroll accepted for LimbPrimeOps API
+        # parity — this path is already the fully fused elementwise loop.)
         d, e, shape = self._bcast2_t(a, b)
         zero = jnp.zeros(shape, jnp.uint32)
         cols = [zero] * 8
@@ -1631,22 +1574,10 @@ class GoldilocksOps(LimbPrimeOps):
 
 class LookupOps:
     """Mixin-style wrapper: EXP/LOG-table gathers for mul/div/recip/pow/log;
-    everything else delegates to the calculate ops.
-
-    TPU routing: XLA lowers table gathers ~1000x off pace, so on TPU
-    - orders <= 2^12 with large arrays ride the Pallas chunked-VMEM gather
-      kernels (ops/_pallas/_elementwise.py; measured 343x over XLA's
-      lowering for GF(2^8));
-    - orders in (2^12, 2^20] — the reference's lookup ceiling,
-      src/galois/_domains/_meta.py:39-48 — auto-route to the calculate
-      kernels, which are strictly faster there than any gather formulation
-      (the Pallas chunk-select tree is O(order/128) per element block).
-      Lookup mode is a performance mode; results are identical.
-    On CPU the XLA gathers are fine and always used."""
-
-    # Pallas VMEM-gather routing thresholds (TPU only).
-    PALLAS_MIN_SIZE = 1 << 13
-    PALLAS_MAX_ORDER = 1 << 12
+    everything else delegates to the calculate ops. The gathers are plain
+    XLA gathers from tables of at most 2^21 int32 entries (orders up to the
+    reference's lookup ceiling, src/galois/_domains/_meta.py:39-48). Lookup
+    mode is a performance mode; results are identical to calculate mode."""
 
     def __init__(self, calc: FieldOps):
         self._calc = calc
@@ -1663,86 +1594,29 @@ class LookupOps:
     def _take(self, table, idx):
         return jnp.take(jnp.asarray(table), idx.astype(jnp.int32), axis=0)
 
-    def _use_pallas(self, *arrays):
-        if self.meta.order > self.PALLAS_MAX_ORDER:
-            return False
-        if max(x.size for x in arrays) < self.PALLAS_MIN_SIZE:
-            return False
-        from ._pallas._elementwise import _HAVE_PALLAS
-
-        return _HAVE_PALLAS and jax.default_backend() == "tpu"
-
-    def _route_calc(self) -> bool:
-        """True when table gathers would ride XLA's catastrophic TPU
-        lowering (order above the Pallas VMEM ceiling): the calculate
-        kernels are strictly faster, and bit-identical."""
-        return self.meta.order > self.PALLAS_MAX_ORDER and jax.default_backend() == "tpu"
-
-    def _padded_tables(self):
-        from ._pallas._elementwise import _pad128
-
-        return jnp.asarray(_pad128(self.EXP)), jnp.asarray(_pad128(self.LOG))
-
     def multiply(self, a, b):
-        q = self.meta.order
-        if self._route_calc():
-            return self._calc.multiply(a, b)
-        if self._use_pallas(a, b):
-            from ._pallas._elementwise import lookup_multiply_pallas
-
-            exp_t, log_t = self._padded_tables()
-            shape = jnp.broadcast_shapes(a.shape, b.shape)
-            A = jnp.broadcast_to(a, shape)
-            B = jnp.broadcast_to(b, shape)
-            return lookup_multiply_pallas(A, B, exp_t, log_t, q).astype(self.dt)
         la = self._take(self.LOG, a)
         lb = self._take(self.LOG, b)
         r = self._take(self.EXP, la + lb)
         zero = jnp.logical_or(a == 0, b == 0)
         return jnp.where(zero, 0, r).astype(self.dt)
 
-    def multiply_bulk(self, a, b):
-        # without this override __getattr__ would delegate to the CALC
-        # ops' multiply_bulk, silently leaving lookup mode
-        if self._route_calc():
-            return self._calc.multiply_bulk(a, b)
-        return self.multiply(a, b)
-
     def square(self, a):
         return self.multiply(a, a)
 
     def reciprocal(self, a):
         q = self.meta.order
-        if self._route_calc():
-            return self._calc.reciprocal(a)
-        if self._use_pallas(a):
-            from ._pallas._elementwise import lookup_reciprocal_pallas
-
-            exp_t, log_t = self._padded_tables()
-            return lookup_reciprocal_pallas(a, exp_t, log_t, q).astype(self.dt)
         la = self._take(self.LOG, a)
         return self._take(self.EXP, (q - 1) - la).astype(self.dt)
 
     def divide(self, a, b):
         q = self.meta.order
-        if self._route_calc():
-            return self._calc.divide(a, b)
-        if self._use_pallas(a, b):
-            from ._pallas._elementwise import lookup_divide_pallas
-
-            exp_t, log_t = self._padded_tables()
-            shape = jnp.broadcast_shapes(a.shape, b.shape)
-            A = jnp.broadcast_to(a, shape)
-            B = jnp.broadcast_to(b, shape)
-            return lookup_divide_pallas(A, B, exp_t, log_t, q).astype(self.dt)
         la = self._take(self.LOG, a)
         lb = self._take(self.LOG, b)
         r = self._take(self.EXP, la + ((q - 1) - lb))
         return jnp.where(a == 0, 0, r).astype(self.dt)
 
     def power(self, a, e):
-        if self._route_calc():
-            return self._calc.power(a, e)
         # jnp remainder is non-negative, so negative exponents work directly:
         # a^e = alpha^(log(a)*e mod (q-1)). Reduce e mod q-1 first so the
         # int64 product log(a)*e cannot overflow (log < 2^20, e_red < 2^20).
@@ -1762,8 +1636,6 @@ class LookupOps:
         return self.power(a, words[0])
 
     def power_static(self, a, e: int):
-        if self._route_calc():
-            return self._calc.power_static(a, e)
         # Reduce mod q-1 first (exponents may exceed 64 bits), but keep the
         # 0^e semantics of the true exponent.
         q = self.meta.order
@@ -1778,8 +1650,6 @@ class LookupOps:
         return self._take(self.LOG, a).astype(jnp.int64)
 
     def sqrt(self, a):
-        if self._route_calc():
-            return self._calc.sqrt(a)
         q = self.meta.order
         la = self._take(self.LOG, a).astype(jnp.int64)
         if q % 2 == 0:

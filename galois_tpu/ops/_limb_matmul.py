@@ -1,15 +1,16 @@
-"""MXU matmul for the Goldilocks prime field p = 2^64 - 2^32 + 1.
+"""Int8-plane matmuls for limb-storage prime fields (Goldilocks, BLS12-381).
 
-Limb-storage (4 x uint16) matrices cannot ride the int/float MXU paths in
-ops/_linalg.py, and the generic scan contraction is latency-bound. Here the
-64-bit values are decomposed into ten 7-bit int8 planes, all 100 plane pairs
-run as exact int8 -> int32 MXU matmuls, the pair products are grouped by
-diagonal s = i + j (19 int32 sums, each < 2^31 for block-K <= 13315), and the
-weighted sum  X = sum_s D_s * (2^(7s) mod p)  is reduced with the same
-2^64 === 2^32 - 1 identity as GoldilocksOps (ops/_kernels.py) in emulated-u64
-lanes — the MXU does all the O(M K N) work; the combine is O(M N).
+Limb-storage (4 x uint16) matrices cannot ride the int/float paths in
+ops/_linalg.py, and the generic scan contraction is latency-bound. For
+p = 2^64 - 2^32 + 1 the 64-bit values are decomposed into ten 7-bit int8
+planes, all 100 plane pairs run as exact int8 -> int32 matmuls, the pair
+products are grouped by diagonal s = i + j (19 int32 sums, each < 2^31 for
+block-K <= 13315), and the weighted sum  X = sum_s D_s * (2^(7s) mod p)  is
+reduced with the same 2^64 === 2^32 - 1 identity as GoldilocksOps
+(ops/_kernels.py) in u64 lanes — the matmuls do all the O(M K N) work; the
+combine is O(M N).
 
-This is the TPU-native analogue of the reference's exact-float BLAS trick for
+This is the integer analogue of the reference's exact-float BLAS trick for
 prime fields (reference: src/galois/_domains/_linalg.py:21-75), extended to a
 64-bit field the reference can only handle in object dtype.
 """
@@ -19,6 +20,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+from ._linalg import int8_matmul
 
 GOLD_P = 2**64 - 2**32 + 1
 _M32 = (1 << 32) - 1
@@ -94,7 +97,7 @@ def goldilocks_matmul(meta, a, b):
         diag = [None] * (2 * _N_PLANES - 1)
         for i in range(_N_PLANES):
             for j in range(_N_PLANES):
-                c = jnp.matmul(a_planes[i], b_planes[j], preferred_element_type=jnp.int32)
+                c = int8_matmul(a_planes[i], b_planes[j])
                 s = i + j
                 diag[s] = c if diag[s] is None else diag[s] + c
         blk = None
@@ -107,15 +110,15 @@ def goldilocks_matmul(meta, a, b):
 
 # ---------------------------------------------------------------------------
 # Generic limb-prime matmul: any GF(p) with planar base-2^16 limb storage
-# (BLS12-381 scalar field and friends). Same MXU digit-plane strategy as the
+# (BLS12-381 scalar field and friends). Same digit-plane strategy as the
 # Goldilocks path above, generalized: the 16L-bit operands are split into
 # D = ceil(16L/7) exact 7-bit int8 digit planes, all D^2 plane pairs run as
-# int8 -> int32 MXU matmuls grouped by diagonal s = i + j, the diagonal sums
+# int8 -> int32 matmuls grouped by diagonal s = i + j, the diagonal sums
 # are scattered into base-2^16 columns of the exact 2L(+eps)-limb integer
 # product, high limbs are folded down with 2^(16*(2L-1)) mod p, and one
 # Barrett reduction (LimbPrimeOps._barrett_t) lands the result in [0, p).
-# The MXU does all O(M K N) work; the combine is O(D^2) elementwise on the
-# (M, N) output only. (TPU-native analogue of the reference's exact-float
+# The matmuls do all O(M K N) work; the combine is O(D^2) elementwise on the
+# (M, N) output only. (Integer analogue of the reference's exact-float
 # BLAS trick, src/galois/_domains/_linalg.py:21-75, for fields the reference
 # can only touch in object dtype.)
 # ---------------------------------------------------------------------------
@@ -129,11 +132,10 @@ def supports_generic(meta) -> bool:
 
 
 _DIGIT_BITS = 8  # biased 8-bit digits (below): 2L planes instead of
-# ceil(16L/7), a 25% MAC cut for 16-limb fields. The s8 MXU path is the
-# one that compiles (a plain-u8 graph spins the remote Mosaic compile
-# >20 min, round-4 probe); unsigned bytes ride it via the quantization
-# zero-point trick: store d - 128 in int8 and add the rank-1 corrections
-# 128*rowsum + 128*colsum + K*128^2 to each diagonal after the matmuls.
+# ceil(16L/7), a 25% MAC cut for 16-limb fields. Unsigned bytes ride
+# s8 x s8 dots via the quantization zero-point trick: store d - 128 in
+# int8 and add the rank-1 corrections 128*rowsum + 128*colsum + K*128^2
+# to each diagonal after the matmuls.
 
 
 def _digit_planes8(limbs, L: int):
@@ -157,8 +159,8 @@ def _kblk_for(D: int) -> int:
 def _glm_core(ops, meta, a, b, mode: str):
     """Chunk the output columns so the int32 digit-product intermediates
     stay bounded: at N = M = 2048 (the BLS 2^22 NTT side) the unchunked
-    (M, D*N) int32 product is ~620 MB live per A-digit and the device
-    OOMs (round-4 bench: 16.02G/15.75G HBM). Chunks run under lax.map so
+    (M, D*N) int32 product is ~620 MB live per A-digit, several GB in
+    all. Chunks run under lax.map so
     only ONE chunk's intermediates are live at a time — a Python loop of
     independent chunks let the scheduler overlap them and still OOM'd.
 
@@ -198,7 +200,7 @@ def _glm_core(ops, meta, a, b, mode: str):
 def _glm_core_block(ops, meta, a, b, mode: str, a_pre=None):
     """Unbatched core: a (L, M, K) @ b (L, K, N) planar u16 -> (L, M, N).
 
-    One stacked int8 MXU matmul per (K-block, A-digit): A_i (M, Kb) times
+    One stacked int8 matmul per (K-block, A-digit): A_i (M, Kb) times
     the j-concatenated B digits (Kb, D*N) — D matmuls per block instead of
     D^2 (an unrolled D^2-matmul graph for 16-limb fields is a compile-time
     cliff, see CLAUDE.md). Digits are biased bytes (d - 128 in int8, see
@@ -215,11 +217,9 @@ def _glm_core_block(ops, meta, a, b, mode: str, a_pre=None):
     D = 2 * L
     M, K = a.shape[-2], a.shape[-1]
     N = b.shape[-1]
-    # TPU: unrolled one-shot combine (the MXU-fold variant round-trips
-    # (2LK, M*N) u32 through HBM — probe_r5f: 277 -> 66 ms per BLS side).
-    # CPU keeps the fold path: the unrolled graph costs minutes of LLVM
-    # compile per test while fold compiles in seconds.
-    unroll = jax.default_backend() == "tpu"
+    from ._kernels import unroll_one_shot
+
+    unroll = unroll_one_shot(L, M * N)  # the combine is a one-shot site
 
     au = [a[k].astype(jnp.uint32) for k in range(L)] if a_pre is None else None
     bu = [b[k].astype(jnp.uint32) for k in range(L)]
@@ -242,7 +242,7 @@ def _glm_core_block(ops, meta, a, b, mode: str, a_pre=None):
         Bt = jnp.stack(b_pl, axis=1).reshape(kb, nD * N)  # (Kb, D*N)
         acc = jnp.zeros((M, 2 * nD - 1, N), jnp.int32)
         for i in range(nD):
-            prod = jnp.matmul(a_pl[i], Bt, preferred_element_type=jnp.int32)
+            prod = int8_matmul(a_pl[i], Bt)
             acc = jax.lax.dynamic_update_slice_in_dim(
                 acc,
                 jax.lax.dynamic_slice_in_dim(acc, i, nD, axis=1)
@@ -319,7 +319,7 @@ def generic_limb_matmul(meta, a, b, mode: str = "jit-calculate"):
     """a: (L, ..., M, K), b: (L, ..., K, N) planar uint16 limbs of a
     large-prime field -> (L, ..., M, N), exact mod p. Leading batch axes
     (after the limb axis) broadcast; a single-sided batch folds into the
-    matmul's M or N axis (one big MXU call, no vmap unrolling)."""
+    matmul's M or N axis (one big matmul, no vmap unrolling)."""
     from ._kernels import get_ops
 
     ops = get_ops(meta, mode)

@@ -1,16 +1,17 @@
 """Finite-field linear algebra kernels.
 
-TPU-native replacement for the reference's _lapack_linalg/Numba layer
+Device replacement for the reference's _lapack_linalg/Numba layer
 (reference: src/galois/_domains/_linalg.py). Strategy:
 
-- GF(2): matmul as a float32 MXU matmul + mod-2 — exact while the inner
+- GF(2): matmul as a float32 matmul + mod-2 — exact while the inner
   dimension K < 2^24 (f32 mantissa), which the call checks.
-- GF(p), small p: exact int64 matmul with K-blocking chosen so block sums
-  never exceed 2^62 (the analogue of the reference's exact-float-dtype pick,
-  src/galois/_domains/_linalg.py:38-51).
-- Everything else: a lax.scan over the contraction axis using the field's
-  multiply/add kernels (always exact; later optimized with bit-plane MXU
-  tricks for GF(2^m)).
+- GF(p), p < 2^32: balanced int8 digit planes, int32-accumulated dots
+  (the analogue of the reference's exact-float BLAS trick,
+  src/galois/_domains/_linalg.py:21-75).
+- GF(2^m), GF(p^m) and limb fields: bit-, digit- and limb-plane matmuls
+  (ops/_binary_matmul.py, _digit_matmul.py, _limb_matmul.py); anything
+  else a lax.scan over the contraction axis using the field's multiply/add
+  kernels (always exact).
 
 Row-reduction / LU / inverse / solve / det use masked pivoting under lax
 control flow so they stay jittable.
@@ -78,7 +79,7 @@ def _matmul_data(meta, mode, a, b, a_vec: bool, b_vec: bool):
         if p == 2:
             out = _gf2_matmul(a, b, K)
         else:
-            out = _prime_matmul(a, b, p, K, meta)
+            out = _prime_matmul_planes(a, b, p, K)
     else:
         from ._binary_matmul import binary_matmul
         from ._binary_matmul import supports as bin_supports
@@ -105,9 +106,9 @@ def _matmul_data(meta, mode, a, b, a_vec: bool, b_vec: bool):
 
 
 def _gf2_matmul(a, b, K):
-    """GF(2) matmul on the MXU via f32 (exact for K < 2^24); larger K is
-    processed in blocks whose parities XOR together (64-bit contractions do
-    not lower on TPU)."""
+    """GF(2) matmul as an f32 dot of 0/1 operands (sums exact for
+    K < 2^24); larger K is processed in blocks whose parities XOR
+    together."""
     blk = 2**23
     acc = None
     for s in range(0, K, blk):
@@ -116,43 +117,28 @@ def _gf2_matmul(a, b, K):
             a[..., s:e].astype(jnp.float32),
             b[..., s:e, :].astype(jnp.float32),
             preferred_element_type=jnp.float32,
+            # exact integer sums need full f32, never a TF32 pass
+            precision=jax.lax.Precision.HIGHEST,
         )
         part = c.astype(jnp.int32) & 1
         acc = part if acc is None else acc ^ part
     return acc.astype(a.dtype)
 
 
-def _prime_matmul(a, b, p, K, meta, a_planes=None, b_planes=None):
-    """Exact prime-field matmul.
+_MIN_DOT_K = 8
 
-    TPU: balanced signed 8-bit plane decomposition onto the int8 MXU with
-    exact int32 accumulation (TPU cannot lower 64-bit dot_general; this is
-    the MXU-native analogue of the reference's exact-float BLAS trick,
-    src/galois/_domains/_linalg.py:21-75). A static operand's planes can
-    be passed precomputed (`a_planes`/`b_planes`, stacked int8 — the NTT
-    plans ship their DFT tables this way so runtime extraction only pays
-    for the data side).
 
-    CPU: exact int64 matmul with K-blocking so block sums stay < 2^62.
-    """
-    if a_planes is not None or b_planes is not None:
-        return _prime_matmul_planes(a, b, p, K, a_planes=a_planes, b_planes=b_planes)
-    if jax.default_backend() == "tpu" or (p - 1) ** 2 * K >= 2**62:
-        # Plane path also serves CPU when int64 accumulation would overflow.
-        return _prime_matmul_planes(a, b, p, K)
-    max_block = max(1, (2**62) // max(1, (p - 1) ** 2))
-    a64 = a.astype(jnp.int64)
-    b64 = b.astype(jnp.int64)
-    if K <= max_block:
-        return (jnp.matmul(a64, b64) % p).astype(a.dtype)
-    n_blocks = -(-K // max_block)
-    acc = None
-    for i in range(n_blocks):
-        s = i * max_block
-        e = min(K, s + max_block)
-        part = jnp.matmul(a64[..., s:e], b64[..., s:e, :]) % p
-        acc = part if acc is None else (acc + part) % p
-    return acc.astype(a.dtype)
+def int8_matmul(a, b):
+    """Exact a (..., M, K) @ b (..., K, N) of int8 operands, int32 sums.
+
+    Every int8 dot of the library goes through here. On an H100 (JAX 0.9.0)
+    XLA's int8 dot returned wrong sums for K = 5, while K = 4, 8, 33, 255
+    and 511 were exact, so contractions shorter than 8 are summed as an
+    elementwise int32 product instead of a dot."""
+    if a.shape[-1] < _MIN_DOT_K:
+        prod = a.astype(jnp.int32)[..., :, :, None] * b.astype(jnp.int32)[..., None, :, :]
+        return jnp.sum(prod, axis=-2, dtype=jnp.int32)
+    return jnp.matmul(a, b, preferred_element_type=jnp.int32)
 
 
 _PLANE_BITS = 8
@@ -166,22 +152,22 @@ def _balanced_planes(x, p, n_planes):
     x in [0, p) maps to x' = x - p*(x > p//2) with |x'| <= p/2 < 2^31, then
     x' = sum d_i 256^i with d_i in [-128, 127] — four s8 digits cover ANY
     p < 2^32 (vs five 7-bit digits), cutting a 31/32-bit prime's plane-pair
-    matmuls from 25 to 16. The s8 path is the one the MXU provably compiles
-    and runs fast; a plain-u8 variant ran at int8 speed but put the remote
-    Mosaic compile into a >20-minute spin on the 2^24 NTT graph (round-4
-    probe), so unsigned 8-bit planes are out.
+    matmuls from 25 to 16.
 
     All arithmetic is 32-bit: the symmetric residue of any p < 2^32 fits
-    int32 (computed in u32 with two's-complement wrap, then bitcast), so
-    the extraction never touches TPU-emulated int64 lanes."""
+    int32 (computed in u32 with two's-complement wrap, then bitcast)."""
     xu = x.astype(jnp.uint32)
     xs = jnp.where(xu > jnp.uint32(p // 2), xu - jnp.uint32(p), xu)
     xs = jax.lax.bitcast_convert_type(xs, jnp.int32)  # |xs| <= p/2 < 2^31
     out = []
     for _ in range(n_planes):
-        d = ((xs + 128) & 255) - 128
-        out.append(d.astype(jnp.int8))
-        xs = (xs - d) >> 8  # exact: (xs - d) is divisible by 256
+        # xs = 256 q + r, r in [0, 256): the digit is r, or r - 256 with a
+        # carry into q. (xs - d) >> 8 would overflow int32 for |xs| near
+        # 2^31, i.e. for p within 258 of 2^32.
+        r = xs & 255
+        up = (r >= 128).astype(jnp.int32)
+        out.append((r - (up << 8)).astype(jnp.int8))
+        xs = (xs >> 8) + up
     return out
 
 
@@ -209,6 +195,12 @@ def balanced_planes_np(x: np.ndarray, p: int) -> np.ndarray:
 
 
 def _prime_matmul_planes(a, b, p, K, a_planes=None, b_planes=None):
+    """Exact GF(p) matmul, p < 2^32: balanced signed 8-bit plane
+    decomposition onto int8 x int8 -> int32 dots (the integer analogue of
+    the reference's exact-float BLAS trick, src/galois/_domains/_linalg.py:
+    21-75). A static operand's planes can be passed precomputed
+    (`a_planes`/`b_planes`, stacked int8 — the NTT plans ship their DFT
+    tables this way so runtime extraction only pays for the data side)."""
     n_planes = balanced_plane_count(p)
     # int32 accumulation is exact while K*128^2 < 2^31
     max_block = (2**31 - 1) // (_PLANE_MAXD**2)
@@ -228,14 +220,12 @@ def _prime_matmul_planes(a, b, p, K, a_planes=None, b_planes=None):
     # each shift < p, so when the worst-case weighted sum fits in int63 we
     # can accumulate every (signed) term raw and reduce mod p exactly once —
     # jnp's % takes the divisor's sign, so negative accumulators land in
-    # [0, p) (64-bit mod is emulated on TPU; doing it once per output
-    # instead of once per plane pair matters).
+    # [0, p) (one 64-bit mod per output instead of one per plane pair).
     if n_planes * n_planes * K * _PLANE_MAXD**2 * (p - 1) < 2**62:
         # Group pair products by diagonal s = i + j IN INT32 first (exact
         # while pairs_per_diag * Kb * 128^2 < 2^31), then weight/accumulate
-        # the 2n-1 diagonal sums in int64. int64 lanes are emulated on TPU,
-        # so paying the convert+multiply+add on 7 diagonals instead of 16
-        # pair products trims the elementwise tail of every plane matmul.
+        # the 2n-1 diagonal sums in int64: the convert+multiply+add runs on
+        # 7 diagonals instead of 16 pair products.
         # Overall bound unchanged: sum_s dp(s)*K*128^2*(p-1) = the guard.
         kdiag = (2**31 - 1) // (_PLANE_MAXD**2 * n_planes)
         acc = None
@@ -244,11 +234,7 @@ def _prime_matmul_planes(a, b, p, K, a_planes=None, b_planes=None):
             diag = [None] * (2 * n_planes - 1)
             for i in range(n_planes):
                 for j in range(n_planes):
-                    blk = jnp.matmul(
-                        a_planes[i][..., s0:e0],
-                        b_planes[j][..., s0:e0, :],
-                        preferred_element_type=jnp.int32,
-                    )
+                    blk = int8_matmul(a_planes[i][..., s0:e0], b_planes[j][..., s0:e0, :])
                     d = i + j
                     diag[d] = blk if diag[d] is None else diag[d] + blk
             for d, v in enumerate(diag):
@@ -262,11 +248,7 @@ def _prime_matmul_planes(a, b, p, K, a_planes=None, b_planes=None):
             part = None
             for s in range(0, K, max_block):
                 e = min(K, s + max_block)
-                blk = jnp.matmul(
-                    a_planes[i][..., s:e],
-                    b_planes[j][..., s:e, :],
-                    preferred_element_type=jnp.int32,
-                )
+                blk = int8_matmul(a_planes[i][..., s:e], b_planes[j][..., s:e, :])
                 blk = (blk.astype(jnp.int64) % p)
                 part = blk if part is None else (part + blk) % p
             # part, shift are both < p (p can approach 2^32), so part*shift

@@ -72,8 +72,8 @@ def _divmod_kernel(meta: FieldMeta, mode: str, n: int, m: int):
     @jax.jit
     def run(a, b, inv_lead):
         # All scan state in limb-tuple form (identity for int storage): a
-        # stacked (n, w) carry maps the w-limb minor axis onto TPU lanes at
-        # w/128 utilization and relayouts every step.
+        # stacked (n, w) carry would relayout its w-limb minor axis at
+        # every step.
         bt = ops.split_limbs(b)
         invt = ops.split_limbs(inv_lead)
 

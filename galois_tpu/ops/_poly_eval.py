@@ -1,7 +1,7 @@
 """Batched polynomial evaluation on device.
 
 Horner's rule as a lax.scan over the (static-length) coefficient sequence —
-the TPU counterpart of the reference's prange-parallel elementwise kernel
+the device counterpart of the reference's prange-parallel elementwise kernel
 (reference: src/galois/_polys/_dense.py:404-440). Coefficients travel as a
 small device array; the element array can be arbitrarily large/sharded.
 """

@@ -1,9 +1,9 @@
-"""Multi-device kernels: shard_map + ICI-collective implementations.
+"""Multi-device kernels: shard_map + collective implementations.
 
 Public surface:
 
 - ``sharded_fft(x, field, mesh, axis)`` — 4-step NTT with the stage
-  exchange as ``all_to_all`` over the mesh axis (ICI), for 1-D inputs whose
+  exchange as ``all_to_all`` over the mesh axis, for 1-D inputs whose
   length admits a D x D split; falls back to a replicated local plan
   otherwise.
 - ``sharded_batched_fft`` — batch axis sharded over devices, transform axis

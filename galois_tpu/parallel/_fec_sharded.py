@@ -32,14 +32,12 @@ def _shardmapped(decoder, mesh: Mesh, axis: str, n_in: int):
     SLOWER than single-device on the 8-device CPU mesh
     (benchmarks/bench_scaling.py, round 3). Cached so repeated calls reuse
     one executable (a fresh jax.jit per call retraces every time)."""
-    from jax.experimental.shard_map import shard_map
-
-    fn = shard_map(
+    fn = jax.shard_map(
         decoder,
         mesh=mesh,
         in_specs=(P(axis, None),) * n_in,
         out_specs=(P(axis, None), P(axis)),
-        check_rep=False,
+        check_vma=False,
     )
     return jax.jit(fn)
 

@@ -7,8 +7,8 @@ column-major as v[n1, n2] = x[n2*N1 + n1]:
     X[k1*N2 + k2] = DFT_N1( twiddle(n1, k2) * DFT_N2(v[n1, :]) )
 
 Each local DFT reuses the single-device mixed-radix plan (ops/_ntt.py); the
-two global transposes are all_to_all collectives over the mesh axis, riding
-ICI. Twiddles are a device-resident cached array (not a trace constant) so
+two global transposes are all_to_all collectives over the mesh axis.
+Twiddles are a device-resident cached array (not a trace constant) so
 large fields don't bloat the executable.
 """
 
@@ -24,7 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..fields._meta import FieldMeta
 from ..ops._kernels import get_ops
-from ..ops._ntt import FFTPlan, _plan
+from ..ops._ntt import FFTPlan, _plan, scale_jit
 
 __all__ = ["sharded_fft", "sharded_batched_fft", "ShardedFFTPlan"]
 
@@ -174,12 +174,6 @@ class ShardedFFTPlan:
             Rl = _transpose(Xl, D, axis, lead)  # rows k1: (N1/D, N2)
             return Rl.reshape(head + (N // D,) + tail)
 
-        import warnings
-
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            from jax.experimental.shard_map import shard_map
-
         if meta.storage_first:
             spec_x = P(None, axis)
             spec_tw = P(None, axis, None)
@@ -195,9 +189,9 @@ class ShardedFFTPlan:
         spec_t2 = jax.tree.map(lambda _: P(), tabs2)
         if self._jitted is None:
             self._jitted = jax.jit(
-                shard_map(
+                jax.shard_map(
                     local_fn, mesh=mesh, in_specs=(spec_x, spec_tw, spec_t1, spec_t2),
-                    out_specs=spec_x, check_rep=False,
+                    out_specs=spec_x, check_vma=False,
                 )
             )
         return self._jitted(x, tw, tabs1, tabs2)
@@ -256,19 +250,13 @@ def _replicated_fallback_fn(meta, N, omega, mode, mesh, axis):
         i = jax.lax.axis_index(axis)
         return jax.lax.dynamic_slice_in_dim(X, i * (N // D), N // D, axis=e_ax)
 
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        from jax.experimental.shard_map import shard_map
-
     if meta.storage_first:
         spec_x = P(None, axis)
     else:
         spec_x = P(axis, *([None] * (1 if meta.storage == "digits" else 0)))
     spec_t = jax.tree.map(lambda _: P(), tabs)
     fn = jax.jit(
-        shard_map(local, mesh=mesh, in_specs=(spec_x, spec_t), out_specs=spec_x, check_rep=False)
+        jax.shard_map(local, mesh=mesh, in_specs=(spec_x, spec_t), out_specs=spec_x, check_vma=False)
     )
     return lambda data: fn(data, tabs)
 
@@ -310,19 +298,13 @@ def sharded_batched_fft(field_cls, x, mesh: Mesh, axis: str = "x", inverse: bool
             out = ops.multiply(out, ops.from_int_scalar(n_inv))
         return out
 
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", DeprecationWarning)
-        from jax.experimental.shard_map import shard_map
-
     if meta.storage_first:
         spec_x = P(None, axis, None)
     else:
         spec_x = P(axis, None, *([None] * (1 if meta.storage == "digits" else 0)))
     spec_t = jax.tree.map(lambda _: P(), tabs)
     fn = jax.jit(
-        shard_map(local, mesh=mesh, in_specs=(spec_x, spec_t), out_specs=spec_x, check_rep=False)
+        jax.shard_map(local, mesh=mesh, in_specs=(spec_x, spec_t), out_specs=spec_x, check_vma=False)
     )
     out = fn(data, tabs)
     if isinstance(x, FieldArray):
@@ -370,9 +352,7 @@ def sharded_fft(field_cls, x, mesh: Mesh, axis: str = "x", inverse: bool = False
     else:
         out = plan(data)
     if inverse:
-        n_inv = hf.reciprocal(N % meta.characteristic)
-        ops = get_ops(meta, mode)
-        out = jax.jit(lambda o: ops.multiply(o, ops.from_int_scalar(n_inv)))(out)
+        out = scale_jit(meta, mode, hf.reciprocal(N % meta.characteristic))(out)
     if isinstance(x, FieldArray):
         return field_cls._view(out, x._dtype)
     return out

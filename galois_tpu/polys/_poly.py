@@ -3,7 +3,7 @@
 API parity with the reference's `Poly` (reference: src/galois/_polys/_poly.py:32).
 Architecture differs: coefficient arithmetic for construction-time work runs
 host-side on exact Python ints (polys/_hostpoly.py) — polynomials are
-trace-time objects in a TPU program. Batched device kernels are used where
+trace-time objects in a device program. Batched device kernels are used where
 arrays get large: evaluation over element arrays (Horner via lax.scan),
 root-finding (Chien scan over powers of alpha), and NTT-based multiplication
 (ops/_ntt.py) for high degrees.

@@ -1,6 +1,6 @@
 """Build the prime-factors database for Cunningham-style numbers b^n +- 1.
 
-TPU-native analogue of the reference's scripts/create_prime_factors_database.py
+Offline analogue of the reference's scripts/create_prime_factors_database.py
 (which scrapes the Cunningham-project tables; reference
 src/galois/_databases/_interface.py:31-75 defines the consumer interface).
 This environment has no network egress, so the table is *computed* instead:

@@ -1,7 +1,7 @@
-"""Regression tests for TPU-motivated kernel specializations:
+"""Regression tests for device kernel specializations:
 
 - Mersenne-prime all-u32 multiply (ops/_kernels.py PrimeOps._mul_mersenne*)
-- MXU 4-step NTT plan vs the elementwise mixed-radix plan (ops/_ntt.py)
+- int8-matmul 4-step NTT plan vs the elementwise mixed-radix plan (ops/_ntt.py)
 - chunked NTT contraction (memory-budgeted j-loop)
 - two-level (sqrt-chunked) Horner polynomial evaluation (ops/_poly_eval.py)
 """
@@ -67,7 +67,7 @@ def test_non_mersenne_has_no_fast_path():
 
 
 # ----------------------------------------------------------------------
-# MXU 4-step NTT plan
+# int8-matmul 4-step NTT plan
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("q,n", [(97, 96), (257, 256), (12289, 4096), (3 * 2**30 + 1, 2048)])
@@ -78,7 +78,7 @@ def test_matmul_fft_plan_matches_elementwise(q, n):
     GF = g.GF(q)
     om = _get_omega(GF, n)
     plan = _plan(GF._meta, n, om, "jit-calculate")
-    assert isinstance(plan, MatmulFFTPlan), "expected the MXU plan for this size"
+    assert isinstance(plan, MatmulFFTPlan), "expected the matmul plan for this size"
     ref_plan = FFTPlan(GF._meta, n, om, "jit-calculate")
     x = np.random.default_rng(0).integers(0, q, n, dtype=np.int64)
     xs = x.astype(GF._meta.internal_dtype)
@@ -147,7 +147,7 @@ def test_chunked_contraction_matches_unchunked():
 # ----------------------------------------------------------------------
 
 # ----------------------------------------------------------------------
-# Goldilocks MXU matmul
+# Goldilocks int8-plane matmul
 # ----------------------------------------------------------------------
 
 GOLD_P = 2**64 - 2**32 + 1
@@ -216,12 +216,12 @@ def test_poly_eval_chunked_boundary(deg):
 
 
 # ----------------------------------------------------------------------
-# Overflow regressions (round-2 ADVICE findings)
+# Overflow regressions
 # ----------------------------------------------------------------------
 
 def test_oddext_digit_accumulator_no_u64_wrap():
     """GF(p^2) with p near 2^32: m*(p-1)^2 >= 2^64 wraps a u64 accumulator
-    unless partial products are reduced mod p first (ADVICE r1, high)."""
+    unless partial products are reduced mod p first."""
     import galois_tpu as g
 
     p = 4294966297
@@ -247,7 +247,7 @@ def test_oddext_digit_accumulator_no_u64_wrap():
 
 def test_prime_matmul_planes_slow_path_no_int64_wrap():
     """p > ~3e9 with large K: the slow path's part*shift product exceeded
-    int63 and wrapped (ADVICE r1, high). Exercise the multi-block slow path."""
+    int63 and wrapped. Exercise the multi-block slow path."""
     import galois_tpu as g
 
     p = 3870334753
@@ -356,8 +356,7 @@ def test_trivial_d1_cyclic_code_construction():
 
 def test_recursive_matmul_fft_plan():
     """Factors above 4096 expand into recursive 6-step sub-plans (bit-exact
-    vs the elementwise reference); factors <= 4096 stay direct matmuls
-    (measured 3.7x faster on the MXU than recursing them)."""
+    vs the elementwise reference); factors <= 4096 stay direct matmuls."""
     import galois_tpu as g
     from galois_tpu.ops._ntt import MatmulFFTPlan, _get_omega, _plan, field_fft
 

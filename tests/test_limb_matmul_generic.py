@@ -1,4 +1,4 @@
-"""Generic limb-prime MXU matmul (BLS12-381 scalar field) and its NTT plan.
+"""Generic limb-prime int8-plane matmul (BLS12-381 scalar field) and its NTT plan.
 
 The Goldilocks path has its own suite (test_kernels_regression.py); these pin
 the generic digit-plane path (ops/_limb_matmul.py::generic_limb_matmul) that
@@ -124,8 +124,8 @@ def test_bls_ntt_roundtrip(F):
 
 
 def test_multiply_unrolled_parity():
-    """The unrolled elementwise limb multiply (TPU twiddle/combine path,
-    LimbPrimeOps unroll=True) is bit-exact vs the default MXU-fold path."""
+    """The unrolled elementwise limb multiply (large one-shot twiddles,
+    LimbPrimeOps unroll=True) is bit-exact vs the default fold path."""
     import jax.numpy as jnp
 
     import galois_tpu as g
@@ -143,33 +143,32 @@ def test_multiply_unrolled_parity():
     A = F(vals)
     B = F(vals[::-1])
     m_fold = ops.multiply(A._data, B._data)
-    m_unroll = ops.multiply_unrolled(A._data, B._data)
+    m_unroll = ops.join_limbs(
+        ops.multiply_t(ops.split_limbs(A._data), ops.split_limbs(B._data), unroll=True)
+    )
     assert np.array_equal(np.asarray(m_fold), np.asarray(m_unroll))
 
 
-def test_glm_unrolled_combine_parity():
+def test_glm_unrolled_combine_parity(monkeypatch):
     """generic_limb_matmul's combine stage gives identical results with the
-    unrolled and fold formulations (the TPU path forces unroll=True)."""
+    unrolled and fold formulations (`unroll_one_shot` picks between them
+    by array size)."""
+    import jax.numpy as jnp
+
     import galois_tpu as g
-    from galois_tpu.ops._kernels import get_ops
+    from galois_tpu.ops import _kernels
     from galois_tpu.ops import _limb_matmul as glm
 
     r = 52435875175126190479447740508185965837690552500527637822603658699938581184513
     F = g.GF(r)
-    ops = get_ops(F._meta, "jit-calculate")
     rng = np.random.default_rng(1)
     n = 24
     vals = rng.integers(0, 2**16, (2, F._meta.storage_width, n, n), dtype=np.int64)
-    a = np.asarray(vals[0], dtype=np.uint16)
-    b = np.asarray(vals[1], dtype=np.uint16)
-    import jax.numpy as jnp
+    a = jnp.asarray(np.asarray(vals[0], dtype=np.uint16))
+    b = jnp.asarray(np.asarray(vals[1], dtype=np.uint16))
 
-    base = glm.generic_limb_matmul(F._meta, jnp.asarray(a), jnp.asarray(b))
-    # force the TPU combine variant by patching the backend probe
-    orig = glm.jax.default_backend
-    try:
-        glm.jax.default_backend = lambda: "tpu"
-        forced = glm.generic_limb_matmul(F._meta, jnp.asarray(a), jnp.asarray(b))
-    finally:
-        glm.jax.default_backend = orig
+    assert not _kernels.unroll_one_shot(F._meta.storage_width, n * n)
+    base = glm.generic_limb_matmul(F._meta, a, b)
+    monkeypatch.setattr(_kernels, "unroll_one_shot", lambda L, n_elems: True)
+    forced = glm.generic_limb_matmul(F._meta, a, b)
     assert np.array_equal(np.asarray(base), np.asarray(forced))

@@ -73,7 +73,7 @@ def test_sharded_matches_batch_of_sizes(mesh):
 
 def test_sharded_ntt_non_dsquared_fallback(mesh):
     """D | N but D^2 does not divide N: the replicated all_gather fallback
-    must produce the same transform (VERDICT r1 item 8)."""
+    must produce the same transform."""
     import galois_tpu as g
     from galois_tpu.ops._ntt import field_fft
     from galois_tpu.parallel._ntt_sharded import sharded_fft
