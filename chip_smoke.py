@@ -23,7 +23,12 @@ process's ``peak_bytes_in_use`` so far, and the result of its exact
 comparison. Any mismatch or error exits non-zero. The last line of
 standard output is one JSON object naming the device.
 
-Usage: ``python chip_smoke.py [--four-cards]`` from the repository root.
+Before phase 1, the library's int8 dot is checked at every contraction
+size from 1 to 64 and at larger ones. ``--probe PART ...`` runs only the
+kernel-decision measurements of ``benchmarks/kernel_probe.py``.
+
+Usage: ``python chip_smoke.py [--four-cards | --probe PART ...]`` from the
+repository root.
 """
 
 from __future__ import annotations
@@ -168,6 +173,92 @@ def host_table(field, op) -> "np.ndarray":
     hf = get_host_field(field._meta)
     q = field.order
     return np.array([[getattr(hf, op)(a, b) for b in range(q)] for a in range(q)], dtype=np.int64)
+
+
+# ----------------------------------------------------------------------
+# int8 dots: the contraction sizes XLA's dot is trusted with
+# ----------------------------------------------------------------------
+
+DOT_KS = tuple(range(1, 65)) + (96, 127, 128, 255, 256, 511, 512, 1023, 2048)
+# (batch, M, N): the smallest, the BCH Chien shape, a batched GF(2^8)
+# product, and a decoder-sized one; batch 1 means plain 2-D operands
+DOT_SHAPES = ((1, 64, 48), (1, 1152, 4599), (16, 128, 256), (1, 8192, 2040))
+
+
+def dot_kind(hlo_text: str) -> str:
+    """What XLA made of a compiled module's dot: a cuBLAS call, a Triton
+    GEMM fusion, or neither (a plain fusion)."""
+    if "__cublas" in hlo_text:
+        return "cublas"
+    if "triton" in hlo_text:
+        return "triton"
+    return "fusion"
+
+
+def _dot_operands(rng, K: int, batch: int, M: int, N: int):
+    lead = () if batch == 1 else (batch,)
+    return (rng.integers(-128, 128, lead + (M, K), dtype="int8"),
+            rng.integers(-128, 128, lead + (K, N), dtype="int8"))
+
+
+def _dot_exact(a, b, got) -> bool:
+    """got == a @ b, against a float64 host product (exact: every sum of
+    int8 products over K <= 2048 is below 2^25)."""
+    import numpy as np
+
+    got = np.asarray(got)
+    return got.dtype == np.int32 and np.array_equal(got, np.matmul(a.astype(np.float64), b.astype(np.float64)))
+
+
+def int8_dot_sweep(dot, ks=DOT_KS, shapes=DOT_SHAPES, seed: int = 0):
+    """Compile ``dot`` (int8 (..., M, K) x (..., K, N) -> int32) alone for
+    every K and shape and check it. Returns the failures as
+    (K, batch, M, N) and, per K, what each shape's dot compiled to."""
+    import jax
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    jdot = jax.jit(dot)
+    failures, kinds = [], {}
+    for K in ks:
+        kinds[K] = []
+        for shape in shapes:
+            a, b = _dot_operands(rng, K, *shape)
+            da, db = jax.device_put(a), jax.device_put(b)
+            compiled = jdot.lower(da, db).compile()
+            if not _dot_exact(a, b, compiled(da, db)):
+                failures.append((K,) + shape)
+            kinds[K].append(dot_kind(compiled.as_text()))
+    return failures, kinds
+
+
+SMOKE_DOT_KS = tuple(range(1, 65)) + (96, 127, 128, 255, 256, 511, 512)
+
+
+def phase_dots(ks=SMOKE_DOT_KS, shapes=DOT_SHAPES, seed: int = 0) -> None:
+    """The library's int8 dot (``ops/_linalg.py::int8_matmul``) at every
+    contraction size in ``ks``; each shape's dots compile as one module."""
+    import jax
+    import numpy as np
+
+    from galois_tpu.ops._linalg import int8_matmul
+
+    rng = np.random.default_rng(seed)
+    sweep = jax.jit(lambda As, Bs: [int8_matmul(a, b) for a, b in zip(As, Bs)])
+    failures, args, cold = [], [], 0.0
+    for shape in shapes:
+        host = [_dot_operands(rng, K, *shape) for K in ks]
+        dev = jax.device_put(([a for a, _ in host], [b for _, b in host]))
+        t0 = time.perf_counter()
+        outs = jax.block_until_ready(sweep(*dev))
+        cold += time.perf_counter() - t0
+        failures += [(K,) + shape for K, (a, b), got in zip(ks, host, outs) if not _dot_exact(a, b, got)]
+        args.append(dev)
+    t0 = time.perf_counter()
+    jax.block_until_ready([sweep(*dev) for dev in args])
+    warm = time.perf_counter() - t0
+    report("dots", f"int8_matmul K={ks[0]}..{ks[-1]} ({len(ks)} sizes x {len(shapes)} shapes)",
+           cold, warm, not failures, failures=failures[:8])
 
 
 # ----------------------------------------------------------------------
@@ -439,22 +530,25 @@ def phase_fec(n_rs: int = 65536, n_bch: int = 16384, seed: int = 0) -> None:
     import galois_tpu as gt
 
     rng = np.random.default_rng(seed)
-    rs = gt.ReedSolomon(255, 223)
-    GF = rs.field
-    msgs = GF((rand_u32(seed, (n_rs, rs.k)) & 0xFF).astype(jnp.uint8))
-    cw, cold, warm = timed(rs.encode, msgs)
-    cw_h = np.asarray(cw.jax)
-    msgs_h = np.asarray(msgs.jax)
-    ok = np.array_equal(cw_h[:, : rs.k], msgs_h) and not np.asarray(rs.detect(cw)).any()
-    report("fec", f"RS(255,223) encode {n_rs}", cold, warm, ok)
-
-    # up to t = 16 symbol errors per codeword
     zero = np.zeros(n_rs, np.int64)
-    n_err = rng.integers(0, rs.t + 1, n_rs)
-    rx, _ = _inject(cw_h, _ranks(rng, cw_h.shape), zero, n_err, lambda s: rng.integers(1, 256, s, dtype=np.uint8))
-    (dec, nerr), cold, warm = timed(lambda c: rs.decode(c, errors=True), GF(jnp.asarray(rx)))
-    ok = np.array_equal(np.asarray(dec.jax), msgs_h) and np.array_equal(nerr, n_err)
-    report("fec", f"RS(255,223) decode {n_rs}, <= {rs.t} errors", cold, warm, ok)
+    # RS(255,239) puts the decoder's Chien and Forney dots at K = 16, 17
+    for k in (239, 223):
+        rs = gt.ReedSolomon(255, k)
+        GF = rs.field
+        msgs = GF((rand_u32(seed + k, (n_rs, rs.k)) & 0xFF).astype(jnp.uint8))
+        cw, cold, warm = timed(rs.encode, msgs)
+        cw_h = np.asarray(cw.jax)
+        msgs_h = np.asarray(msgs.jax)
+        ok = np.array_equal(cw_h[:, : rs.k], msgs_h) and not np.asarray(rs.detect(cw)).any()
+        report("fec", f"RS(255,{k}) encode {n_rs}", cold, warm, ok)
+
+        # up to t symbol errors per codeword
+        n_err = rng.integers(0, rs.t + 1, n_rs)
+        rx, _ = _inject(cw_h, _ranks(rng, cw_h.shape), zero, n_err,
+                        lambda s: rng.integers(1, 256, s, dtype=np.uint8))
+        (dec, nerr), cold, warm = timed(lambda c: rs.decode(c, errors=True), GF(jnp.asarray(rx)))
+        ok = np.array_equal(np.asarray(dec.jax), msgs_h) and np.array_equal(nerr, n_err)
+        report("fec", f"RS(255,{k}) decode {n_rs}, <= {rs.t} errors", cold, warm, ok)
 
     # f erasures (any value) and e errors elsewhere, 2e + f <= d - 1 = 32;
     # n_errors counts the errors outside the erased positions
@@ -542,6 +636,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--four-cards", action="store_true",
                         help="run only the four-card galois_tpu.parallel path")
+    parser.add_argument("--probe", nargs="+", metavar="PART",
+                        choices=("dots", "trace", "unroll", "s64", "lookup"),
+                        help="run only these kernel-decision measurements "
+                             "(benchmarks/kernel_probe.py) on one card")
     args = parser.parse_args(argv)
     n_cards = 4 if args.four_cards else 1
 
@@ -558,14 +656,19 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     if args.four_cards:
         phase_sharded(n_dev=4)
+    elif args.probe:
+        from benchmarks import kernel_probe
+
+        kernel_probe.run(args.probe)
     else:
+        phase_dots()
         phase_fields()
         phase_linalg()
         phase_ntt()
         phase_fec()
     print(f"[done] total_s={time.perf_counter() - t0:.3f}", flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": devices[0].platform, "kind": devices[0].device_kind, "count": len(devices)}}))
+        "platform": devices[0].platform, "kind": devices[0].device_kind, "count": n_cards}}))
     return 0
 
 

@@ -125,19 +125,19 @@ def _gf2_matmul(a, b, K):
     return acc.astype(a.dtype)
 
 
-_MIN_DOT_K = 8
-
-
 def int8_matmul(a, b):
     """Exact a (..., M, K) @ b (..., K, N) of int8 operands, int32 sums.
 
     Every int8 dot of the library goes through here. On an H100 (JAX 0.9.0)
-    XLA's int8 dot returned wrong sums for K = 5, while K = 4, 8, 33, 255
-    and 511 were exact, so contractions shorter than 8 are summed as an
-    elementwise int32 product instead of a dot."""
-    if a.shape[-1] < _MIN_DOT_K:
-        prod = a.astype(jnp.int32)[..., :, :, None] * b.astype(jnp.int32)[..., None, :, :]
-        return jnp.sum(prod, axis=-2, dtype=jnp.int32)
+    XLA's Triton int8 GEMM returned wrong sums when K is not a multiple of
+    4: for K = 2..15 at every shape tried, and for K = 49..63, 127, 255,
+    511 and 1023 at large ones; every multiple of 4 from 4 to 2048 was
+    exact (`python chip_smoke.py --probe dots`). So K is zero-padded to a
+    multiple of 4; zero terms change no sum."""
+    pad = -a.shape[-1] % 4
+    if pad:
+        a = jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+        b = jnp.pad(b, [(0, 0)] * (b.ndim - 2) + [(0, pad), (0, 0)])
     return jnp.matmul(a, b, preferred_element_type=jnp.int32)
 
 

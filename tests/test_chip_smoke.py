@@ -2,11 +2,35 @@
 CPU, its refusal to run without a GPU, and its compile-cache rule."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import chip_smoke
 import galois_tpu as gt
+
+
+def test_dots_phase_tiny():
+    chip_smoke.phase_dots(ks=(1, 5, 17, 64), shapes=((1, 8, 6), (3, 4, 5)))
+
+
+def test_dot_sweep_reports_a_wrong_dot():
+    def off_by_one(a, b):
+        out = jnp.matmul(a, b, preferred_element_type=jnp.int32)
+        return out + (a.shape[-1] == 5)
+
+    failures, kinds = chip_smoke.int8_dot_sweep(off_by_one, ks=(4, 5), shapes=((1, 3, 2), (2, 3, 2)))
+    assert failures == [(5, 1, 3, 2), (5, 2, 3, 2)]
+    assert set(kinds) == {4, 5}
+
+
+@pytest.mark.parametrize("text, kind", [
+    ('custom_call_target="__cublas$lt$matmul"', "cublas"),
+    ('"kind":"__triton_gemm"', "triton"),
+    ("fusion(...), kind=kLoop", "fusion"),
+])
+def test_dot_kind(text, kind):
+    assert chip_smoke.dot_kind(text) == kind
 
 
 def test_fields_phase_tiny():

@@ -163,13 +163,20 @@ def test_int8_matmul_small_contractions(K):
     assert np.array_equal(np.asarray(got), np.einsum("bmk,bkn->bmn", a.astype(np.int64), b.astype(np.int64)))
 
 
+@pytest.mark.parametrize("K", [1, 2, 3, 5, 17, 255])
+def test_int8_matmul_pads_contraction_to_multiple_of_4(K):
+    """The dot XLA sees has K rounded up to a multiple of 4."""
+    a = jnp.zeros((3, K), jnp.int8)
+    b = jnp.zeros((K, 2), jnp.int8)
+    eqns = [e for e in jax.make_jaxpr(_linalg.int8_matmul)(a, b).jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert [e.invars[0].aval.shape[-1] for e in eqns] == [-(-K // 4) * 4]
+
+
 @pytest.mark.gpu
 def test_int8_matmul_exact_on_gpu(gpu_device):
-    """Every small contraction size, compiled for the card."""
-    rng = np.random.default_rng(0)
-    f = jax.jit(_linalg.int8_matmul)
-    for K in list(range(1, 41)) + [63, 127, 255, 511]:
-        a = rng.integers(-128, 128, (64, K)).astype(np.int8)
-        b = rng.integers(-128, 128, (K, 48)).astype(np.int8)
-        got = f(jax.device_put(a, gpu_device), jax.device_put(b, gpu_device))
-        assert np.array_equal(np.asarray(got), a.astype(np.int64) @ b.astype(np.int64)), K
+    """Every contraction size from 1 to 64 and larger ones, compiled for
+    the card, at the shapes where XLA's raw dot went wrong."""
+    import chip_smoke
+
+    with jax.default_device(gpu_device):
+        chip_smoke.phase_dots(shapes=((1, 1152, 4599), (1, 8192, 2040)))
